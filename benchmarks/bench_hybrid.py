@@ -1,14 +1,14 @@
-"""Hybrid-ratio sweep: measure the kernel/XLA batch split, mirroring the
+"""Hybrid-ratio sweep: measure the RNS/CIOS batch split, mirroring the
 reference's bench_hybrid (benchmark/bench_hybrid.cpp:66-222), which sweeps
 the QAT ratio 0..100% for modexp/encrypt/decrypt/mul and from which its
 OPTIMAL ratios (ipcl/include/ipcl/utils/common.hpp:18-23) were derived.
 
-Here the primary backend is the fused RNS/MXU kernel and the secondary is
-the pure-XLA pipeline (ops/dispatch.py HybridMode); ratio r routes
-floor(r*B) rows to the kernel and the rest to XLA, concurrently via JAX
-async dispatch.  Evidence for ops/dispatch.OPTIMAL_RATIOS: on TPU the
-kernel wins at every batch size, so the tuned optimum is 1.0 across the
-board (unlike the reference's QAT, which loses to AVX512 below batch 128).
+Here the primary backend is RNS and the secondary is the CIOS ("xla")
+pipeline (ops/dispatch.py HybridMode); ratio r routes floor(r*B) rows to
+RNS and the rest to CIOS, concurrently via JAX async dispatch.  This is
+the measurement behind ops/dispatch.OPTIMAL_RATIOS (policy 1.0 until it
+runs on the H100).  Runs on a GPU only; every line carries the device
+stamp.
 
 Usage: python benchmarks/bench_hybrid.py [--bits 1024] [--batches 16,256]
        [--ratios 0,0.5,0.9,1] [--iters 3]
@@ -21,12 +21,14 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import random
+import random  # noqa: E402
 
-import pailliercryptolib_tpu as ptpu
-from pailliercryptolib_tpu.ops import dispatch
+import pailliercryptolib_tpu as ptpu  # noqa: E402
+from pailliercryptolib_tpu.ops import dispatch  # noqa: E402
+from pailliercryptolib_tpu.utils.config import enable_compile_cache  # noqa: E402
+from pailliercryptolib_tpu.utils.devinfo import device_stamp  # noqa: E402
 
 
 def log(m):
@@ -50,6 +52,8 @@ def main():
     ap.add_argument("--ratios", type=str, default="0,0.5,0.9,1")
     ap.add_argument("--iters", type=int, default=3)
     args = ap.parse_args()
+    enable_compile_cache()
+    stamp = device_stamp()
     batches = [int(b) for b in args.batches.split(",")]
     ratios = [float(r) for r in args.ratios.split(",")]
     rng = random.Random(5)
@@ -73,7 +77,8 @@ def main():
                 dt = timed(fn, args.iters)
                 row = {
                     "op": op, "bits": args.bits, "batch": B, "ratio": r,
-                    "ms": round(dt * 1e3, 2), "per_s": round(B / dt),
+                    "ms": round(dt * 1e3, 3), "per_s": round(B / dt),
+                    **stamp,
                 }
                 print(json.dumps(row), flush=True)
                 log(f"{op:9s} B={B:5d} r={r:4.2f}  {dt*1e3:9.2f} ms")

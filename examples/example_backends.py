@@ -3,10 +3,10 @@
 
 Where the reference splits a modexp vector between QAT and AVX512 by a
 tunable ratio (ipcl/mod_exp.cpp:688-732), this framework splits each batch
-between the fused TPU kernel pipeline and the pure-XLA fallback with the
-same policy API (set_hybrid_mode / set_hybrid_ratio / set_hybrid_off) —
-and, like the reference, the OPTIMAL default routes everything to the
-fastest engine.
+between its two modexp backends — RNS (the default) and the limb-serial
+CIOS fallback ("xla") — with the same policy API (set_hybrid_mode /
+set_hybrid_ratio / set_hybrid_off); the OPTIMAL default keeps the whole
+batch on the primary backend.
 """
 
 import time
@@ -30,17 +30,17 @@ def main():
     key = ptpu.generate_keypair(1024, enable_DJN=True)
     pt = ptpu.PlainText(list(range(1, 257)))
 
-    # OPTIMAL (default): the whole batch on the kernel backend
+    # OPTIMAL (default): the whole batch on the RNS backend
     ct = time_encrypt(key, pt, "OPTIMAL")
     assert key.priv_key.decrypt(ct).texts == pt.texts
 
-    # a manual 75/25 split: head on the kernel pipeline, tail on pure XLA,
-    # dispatched concurrently (the reference's QAT-head/IPP-tail std::thread)
+    # a manual 75/25 split: head on RNS, tail on CIOS, dispatched
+    # concurrently (the reference's QAT-head/IPP-tail std::thread)
     ptpu.set_hybrid_ratio(0.75)
     ct = time_encrypt(key, pt, "ratio 0.75")
     assert key.priv_key.decrypt(ct).texts == pt.texts
 
-    # everything on the XLA fallback (the reference's HybridMode::IPP)
+    # everything on the CIOS fallback (the reference's HybridMode::IPP)
     ptpu.set_hybrid_mode(ptpu.HybridMode.XLA)
     ct = time_encrypt(key, pt, "HybridMode.XLA")
     assert key.priv_key.decrypt(ct).texts == pt.texts

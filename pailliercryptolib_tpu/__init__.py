@@ -1,11 +1,11 @@
-"""pailliercryptolib_tpu — a TPU-native Paillier cryptosystem framework.
+"""pailliercryptolib_tpu — a batched Paillier cryptosystem framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 intel/pailliercryptolib (IPCL): Paillier keygen, encryption (normal + DJN),
 CRT decryption, homomorphic add / scalar-multiply, serialization — with the
-single hot primitive (batched modular exponentiation) implemented as batched
-fixed-limb Montgomery arithmetic on the TPU vector unit instead of
-AVX512-IFMA/QAT offload.
+single hot primitive (batched modular exponentiation) implemented as RNS
+Montgomery arithmetic whose base extensions are exact digit-plane matrix
+products, instead of AVX512-IFMA/QAT offload.
 
 Public API (mirrors ipcl/include/ipcl/ipcl.hpp):
 

@@ -1,6 +1,6 @@
 // Native host codec: byte-string <-> limb/window array conversions.
 //
-// The TPU-native analog of the reference's native data-marshalling layer
+// The analog of the reference's native data-marshalling layer
 // (BigNumber::toBin/fromBin endian converters, ipcl/bignum.cpp:511-565, and
 // the QAT buffer packing in ipcl/mod_exp.cpp:108-169): converting between
 // arbitrary-precision integers (as little-endian byte strings) and the

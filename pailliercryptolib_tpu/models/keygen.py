@@ -6,9 +6,9 @@ Miller-Rabin over the OS CSPRNG.  Keygen is a one-time host operation — the
 reference never offloads it either (SURVEY.md §3.1) — so there is no device
 path here.  Conditions enforced (ipcl/keygen.cpp:43-117):
 
-* key size in [200, 2048]... extended here to 4096 (the TPU kernels are
-  width-generic; the reference caps at 2048 only because mbx_exp_mb8 tops
-  out at 4096-bit operands), divisible by 4;
+* key size in [200, 2048]... extended here to 4096 (the limb and RNS
+  arithmetic is width-generic; the reference caps at 2048 only because
+  mbx_exp_mb8 tops out at 4096-bit operands), divisible by 4;
 * |p - q| > 2^(keysize/2 - 100);
 * DJN variant: p = q = 3 (mod 4) and gcd(p-1, q-1) == 2;
 * n = p*q has exactly ``n_length`` bits.

@@ -4,7 +4,7 @@ Host-side key objects holding arbitrary-precision integers, with cached
 device engines for all batched math.  Semantics mirror the reference
 (ipcl/pub_key.cpp, ipcl/pri_key.cpp) including the DJN variant, the
 deterministic-randomness test hooks, and the CRT decrypt path — but all hot
-math runs as batched TPU programs instead of per-element ipp calls.
+math runs as batched device programs instead of per-element ipp calls.
 """
 
 from __future__ import annotations
@@ -138,7 +138,7 @@ class PublicKey:
             if _rng.use_device_rng():
                 # 44-byte seed, expanded on device (utils/rng.DeviceSeed)
                 return _rng.DeviceSeed()
-            # bytes-direct CSPRNG draw (the fixed-base kernel's wire format)
+            # bytes-direct CSPRNG draw (the fixed-base exponentiation's wire format)
             return _rng.batch_random_bytes(size, self.randbits)
         if op == "encrypt" and _rng.use_device_rng():
             return _rng.DeviceSeed()

@@ -219,8 +219,8 @@ class CipherText(BaseText):
             b = other.texts
             if not (len(self) == len(b) or len(b) == 1):
                 raise ValueError("CT * PT error: Size mismatch!")
-            # scalar PT stays size-1: the engine routes it to the
-            # shared-exponent kernel (no host-side replication)
+            # scalar PT stays size-1: the engine runs it as one shared
+            # exponent (no host-side replication)
             out = self.public_key._engine.mul_ctpt_dev(self.device_payload(), b)
             return CipherText(self.public_key, out)
         return NotImplemented

@@ -8,7 +8,9 @@ batched device call each (the reference pads chunks of 8 to the widest
 operand instead, ipcl/mod_exp.cpp:480-516).
 
 Moduli must be odd (a Montgomery-arithmetic requirement, as in the
-reference's ippsMontExp backend).
+reference's ippsMontExp backend).  One-shot calls run the CIOS
+exponentiation (ops/montgomery.py): building an RNS context per modulus
+would cost more than it saves.
 """
 
 from __future__ import annotations
@@ -20,10 +22,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from . import dispatch
 from .limbs import ints_to_limbs, ints_to_windows, limbs_to_ints, num_windows
-from .montgomery import MontConstants
-from .pallas_modexp import BATCH_TILE
+from .montgomery import MontConstants, mont_exp
 
 IntOrList = Union[int, Sequence[int]]
 
@@ -33,21 +33,13 @@ def _mont_cache(modulus: int) -> MontConstants:
     return MontConstants.create(modulus)
 
 
-_modexp_jit = jax.jit(
-    dispatch.modexp_backend, static_argnames=("backend",)
-)
+_modexp_jit = jax.jit(mont_exp)
 
 
-def _round_batch(n: int, backend: str) -> int:
-    if backend != "xla":
-        return -(-n // BATCH_TILE) * BATCH_TILE
-    return 1 << max(0, (n - 1).bit_length())
-
-
-def _modexp_group(bases: List[int], exps: List[int], m: int, backend: str):
+def _modexp_group(bases: List[int], exps: List[int], m: int):
     ctx = _mont_cache(m)
     L = ctx.num_limbs
-    target = _round_batch(len(bases), backend)
+    target = 1 << max(0, (len(bases) - 1).bit_length())
     bases = bases + [1] * (target - len(bases))
     exps = exps + [0] * (target - len(exps))
     ebits = max(1, max(e.bit_length() for e in exps))
@@ -55,12 +47,12 @@ def _modexp_group(bases: List[int], exps: List[int], m: int, backend: str):
     base_a = jnp.asarray(ints_to_limbs([b % m for b in bases], L))
     wins = jnp.asarray(ints_to_windows(exps, nw * 4))
     n, n0inv, r2, one = ctx.as_device_args()
-    out = _modexp_jit(base_a, wins, n, n0inv, r2, one, backend=backend)
+    out = _modexp_jit(base_a, wins, n, n0inv, r2, one)
     return limbs_to_ints(np.asarray(out))
 
 
 def modexp(
-    base: IntOrList, exp: IntOrList, mod: IntOrList, backend: str = None
+    base: IntOrList, exp: IntOrList, mod: IntOrList
 ) -> Union[int, List[int]]:
     """base^exp mod mod, elementwise over equal-length vectors (or scalars).
 
@@ -77,10 +69,6 @@ def modexp(
     for m in mods:
         if m <= 0 or m % 2 == 0:
             raise ValueError("modExp: moduli must be positive odd integers")
-    if backend is None:
-        backend = dispatch.default_backend()
-        if backend.startswith("rns"):
-            backend = "pallas"  # one-shot calls shouldn't build RNS contexts
 
     groups = {}
     for i, m in enumerate(mods):
@@ -89,7 +77,7 @@ def modexp(
     out: List[int] = [0] * size
     for m, idxs in groups.items():
         res = _modexp_group([bases[i] for i in idxs], [exps[i] for i in idxs],
-                            m, backend)
+                            m)
         for j, i in enumerate(idxs):
             out[i] = res[j]
     return out[0] if scalar else out

@@ -40,10 +40,11 @@ def mul_shared(a: jax.Array, x: jax.Array) -> jax.Array:
     (< 2**15); ``x`` digits may be redundant up to 2**15 inclusive.
 
     The product is ONE exact integer matmul against a Toeplitz matrix of
-    a's limbs — out[j] = sum_l x[l] * a[j-l] — evaluated as int8 7-bit
-    digit planes with i32 accumulation on the MXU (partial sums
-    <= 127^2 * Lx < 2^23: exact), exactly the machinery of the RNS base
-    extensions (ops/rns.py).  This replaces a fori_loop of La sequential
+    a's limbs — out[j] = sum_l x[l] * a[j-l] — evaluated as 7-bit digit
+    planes in bf16 with f32 accumulation, the machinery of the RNS base
+    extensions (ops/rns.py): each plane product sums <= 127^2 * Lx < 2^24
+    (Lx < 1040 limbs), so it is exact, and planes are added only after
+    the cast to uint32.  This replaces a fori_loop of La sequential
     dynamic-slice updates whose per-step overhead dominated the decrypt
     tail and the raw-encrypt embedding.
     """
@@ -57,12 +58,12 @@ def mul_shared(a: jax.Array, x: jax.Array) -> jax.Array:
     valid = (idx >= 0) & (idx < La)
     T = jnp.where(valid, a[jnp.clip(idx, 0, La - 1)], _U32(0))  # [Lx, Lo]
 
-    def planes3(v):  # digits <= 2**15 -> 7/7/1(2)-bit int8 planes
-        i8 = jnp.int8
+    def planes3(v):  # digits <= 2**15 -> 7/7/2-bit planes, exact in bf16
+        bf = jnp.bfloat16
         return (
-            (v & _U32(127)).astype(jnp.int32).astype(i8),
-            ((v >> _U32(7)) & _U32(127)).astype(jnp.int32).astype(i8),
-            (v >> _U32(14)).astype(jnp.int32).astype(i8),
+            (v & _U32(127)).astype(bf),
+            ((v >> _U32(7)) & _U32(127)).astype(bf),
+            (v >> _U32(14)).astype(bf),
         )
 
     xp = planes3(x)
@@ -71,8 +72,8 @@ def mul_shared(a: jax.Array, x: jax.Array) -> jax.Array:
     def mm(u, V):
         return jax.lax.dot_general(
             u, V, (((u.ndim - 1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
+            preferred_element_type=jnp.float32,
+        ).astype(_U32)
 
     # group the 9 plane products by total shift s = 7*(i+j)
     S = [None] * 5
@@ -93,9 +94,8 @@ def mul_shared(a: jax.Array, x: jax.Array) -> jax.Array:
     for s, plane in enumerate(S):
         pshift = 7 * s
         col, r = divmod(pshift, LIMB_BITS)
-        pl = plane.astype(_U32)
-        lo_part = (pl & _U32((1 << (LIMB_BITS - r)) - 1)) << _U32(r)
-        hi_part = pl >> _U32(LIMB_BITS - r)
+        lo_part = (plane & _U32((1 << (LIMB_BITS - r)) - 1)) << _U32(r)
+        hi_part = plane >> _U32(LIMB_BITS - r)
         acc = acc + shift_cols(lo_part, col) + shift_cols(hi_part, col + 1)
     return canonicalize(acc)
 
@@ -171,8 +171,9 @@ def mod_fold(
 
 def mod_fold_combine(folded, x_lo, n):
     """Tail of :func:`mod_fold` given folded = x_hi * R mod m (< 2m, digits
-    <= 2**15) and the canonical low half x_lo.  Split out so the Montgomery
-    product can run on the Pallas backend (ops/paillier_ops.py)."""
+    <= 2**15) and the canonical low half x_lo.  Split out so the CRT decrypt
+    can vmap the Montgomery product over both residue systems
+    (ops/paillier_ops.py)."""
     L = n.shape[-1]
     ext = jnp.concatenate(
         [folded + x_lo, jnp.zeros(folded.shape[:-1] + (1,), _U32)], axis=-1

@@ -1,47 +1,38 @@
-"""Backend dispatch for the batched modexp primitive.
+"""Backend choice for the batched modexp primitive.
 
 The analog of the reference's single dispatch seam ``ipcl::modExp``
 (ipcl/mod_exp.cpp:680-737), which routes between the QAT offload runtime and
 the AVX512 multi-buffer CPU path with a tunable hybrid ratio.  Here the
 backends are:
 
-* ``"pallas"``            — the fused VMEM-resident TPU kernel (default on TPU)
-* ``"pallas_interpret"``  — same kernel via the Pallas interpreter (CPU tests)
-* ``"xla"``               — the pure-XLA reference implementation
+* ``"rns"`` — RNS Montgomery arithmetic with digit-plane matmuls
+  (ops/rns.py; the default on every platform)
+* ``"xla"`` — the limb-serial CIOS implementation (ops/montgomery.py): the
+  hybrid-split secondary, and the fallback for moduli wider than the RNS
+  prime pool serves
 
 plus the IPCL-compatible hybrid-mode knobs (``set_hybrid_mode`` /
 ``set_hybrid_ratio`` / ``set_hybrid_off``, mod_exp.hpp:16-48): a fractional
-split of the batch between two backends, preserved as an API/policy seam
-even though a single TPU backend is typically optimal.
+split of the batch between the two backends, preserved as an API/policy
+seam even though a single backend is the default policy.
 """
 
 from __future__ import annotations
 
 import enum
 import threading
-from typing import Optional
 
-import jax
-import jax.numpy as jnp
-
-from .limbs import LIMB_BITS
-from .montgomery import mont_exp, mont_mod_mul, mont_mul
-from .pallas_modexp import (
-    BATCH_TILE,
-    pallas_mod_mul,
-    pallas_modexp,
-    pallas_mont_raw,
-)
+BACKENDS = ("rns", "xla")
 
 
 class HybridMode(enum.IntEnum):
     """Mirrors ipcl::HybridMode (mod_exp.hpp:15-29) value-for-value; a
     member's value is the percent of the batch routed to the *primary*
-    backend (the fused TPU kernel — the reference's QAT analog); the rest
-    runs on the pure-XLA fallback (the reference's IPP analog)."""
+    backend (RNS — the reference's QAT analog); the rest runs on the CIOS
+    fallback (the reference's IPP analog)."""
 
     OPTIMAL = 95  # per-op tuned ratios, workload-size gated
-    FULL = 100  # reference "QAT": everything on the kernel backend
+    FULL = 100  # reference "QAT": everything on the primary backend
     PREF_KERNEL90 = 90
     PREF_KERNEL80 = 80
     PREF_KERNEL70 = 70
@@ -59,22 +50,12 @@ class HybridMode(enum.IntEnum):
 #: (ipcl/utils/common.hpp:18: IPCL_WORKLOAD_SIZE_THRESHOLD).
 WORKLOAD_SIZE_THRESHOLD = 128
 
-#: Per-op OPTIMAL ratios: fraction of the batch on the kernel backend.
+#: Per-op OPTIMAL ratios: fraction of the batch on the primary backend.
 #: The reference's QAT-tuned values are encrypt 0.25 / decrypt 0.12 /
 #: multiply 0.18 (ipcl/utils/common.hpp:20-23) because its accelerator
-#: loses to AVX512 on most of the batch; on TPU the fused kernel wins at
-#: every measured point, so the tuned optimum is 1.0 across the board.
-#: MEASURED, not assumed: benchmarks/bench_hybrid.py sweeps on a v5e
-#: (benchmarks/results/hybrid_sweep_v5e.jsonl) cover 1024-bit keys at
-#: batches {16, 256} x ratios {0, 0.5, 0.9, 1} and 2048-bit keys at
-#: batches {16, 256, 2048} x ratios {0.9, 1}.  Encrypt: any split loses
-#: catastrophically at every covered point (2048-bit ratio 0.9 is
-#: 70-130x the ratio-1.0 time — the XLA tail dominates).  Decrypt /
-#: multiply: ratio 1.0 wins at every covered point up to batch 256; at
-#: batch 2048 ratios 0.9 and 1.0 measure within the run's ~5% noise
-#: (29.3 vs 30.5 ms decrypt, 10.2 vs 11.4 ms multiply), so 1.0 is kept
-#: — it avoids the XLA pipeline's multi-minute first compile and the
-#: host-side batch split.
+#: loses to AVX512 on most of the batch.  Here 1.0 (no split) is policy:
+#: the split has not been measured on the H100
+#: (benchmarks/bench_hybrid.py sweeps it).
 OPTIMAL_RATIOS = {"encrypt": 1.0, "decrypt": 1.0, "multiply": 1.0}
 HYBRID_RATIO_FULL = 1.0
 
@@ -94,8 +75,8 @@ def set_hybrid_mode(mode: HybridMode) -> None:
 
 
 def set_hybrid_ratio(ratio: float, reset_mode: bool = True) -> None:
-    """Route ``ratio`` of every batch to the kernel backend (the reference's
-    setHybridRatio, mod_exp.cpp:35-42)."""
+    """Route ``ratio`` of every batch to the primary backend (the
+    reference's setHybridRatio, mod_exp.cpp:35-42)."""
     if not 0.0 <= ratio <= 1.0:
         raise ValueError("hybrid ratio must be in [0, 1]")
     _params.ratio = ratio
@@ -124,8 +105,8 @@ def is_hybrid_optimal() -> bool:
 
 
 def hybrid_head_count(op: str, size: int, backend: str) -> int:
-    """Rows of a ``size``-row batch to run on the primary (kernel) backend;
-    the rest goes to the pure-XLA fallback pipeline.
+    """Rows of a ``size``-row batch to run on the primary (RNS) backend;
+    the rest goes to the CIOS fallback pipeline.
 
     The reference's split point (ipcl/mod_exp.cpp:688-732) with its per-op
     OPTIMAL policy (isHybridOptimal branches at pub_key.cpp:119-125,
@@ -146,10 +127,9 @@ def hybrid_head_count(op: str, size: int, backend: str) -> int:
 
 
 def default_backend() -> str:
-    """Pick the modexp backend for this process.
-
-    Order: runtime config (utils/config.set_config or the
-    PAILLIER_TPU_BACKEND env var it loads) > device autodetect — the
+    """Pick the modexp backend for this process: the runtime config
+    (utils/config.set_config, or the PAILLIER_TPU_BACKEND env var it
+    loads) when it pins one, else ``"rns"`` on every platform — the
     analog of the reference's IPCL_DISABLE_AVX512IFMA-style runtime
     overrides (ipcl/include/ipcl/utils/util.hpp:48-64)."""
     import os
@@ -160,93 +140,12 @@ def default_backend() -> str:
     # env var when no backend is pinned so late os.environ mutation
     # (common in tests) still takes effect per call.
     forced = get_config().backend or os.environ.get("PAILLIER_TPU_BACKEND")
-    if forced:
-        return forced
-    try:
-        dev = jax.devices()[0]
-    except RuntimeError:
-        return "xla"
-    if "TPU" in getattr(dev, "device_kind", "") or dev.platform in ("tpu",):
-        return "rns"  # MXU path; "pallas" = CIOS/VPU kernel, "xla" = fallback
-    return "xla"
+    return check_backend(forced) if forced else "rns"
 
 
-def modexp_backend(base, windows, n, n0inv, r2, one, backend: str):
-    """Route one [..., B, L]-shaped modexp to the chosen backend.
-
-    base: [B, L] or [L] (shared); windows: [B, NW] or [1, NW] (shared);
-    n/r2/one: [L]; n0inv scalar.  Returns canonical [B, L].
-    """
-    if backend == "xla":
-        return mont_exp(base, windows, n, n0inv, r2, one)
-    interpret = backend == "pallas_interpret"
-    if base.ndim == 1:
-        B = windows.shape[0]
-        base = jnp.broadcast_to(base, (B, base.shape[-1]))
-    B, L = base.shape
-    if windows.shape[0] == 1 and B != 1:
-        windows = jnp.broadcast_to(windows, (B, windows.shape[-1]))
-    out = pallas_modexp(
-        base[None],
-        windows[None],
-        n[None],
-        jnp.reshape(n0inv, (1,)),
-        r2[None],
-        one[None],
-        interpret=interpret,
-    )
-    return out[0]
-
-
-def modexp_backend_grouped(base, windows, n, n0inv, r2, one, backend: str):
-    """Grouped variant: base [G, B, L], windows [G, 1|B, NW], consts [G, ...].
-
-    Used by CRT decryption (G=2: the p^2 / q^2 residue systems)."""
-    if backend == "xla":
-        return jax.vmap(mont_exp, in_axes=(0, 0, 0, 0, 0, 0))(
-            base, windows, n, n0inv, r2, one
+def check_backend(backend: str) -> str:
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"unknown modexp backend {backend!r}; expected one of {BACKENDS}"
         )
-    interpret = backend == "pallas_interpret"
-    G, B, L = base.shape
-    if windows.shape[1] == 1 and B != 1:
-        windows = jnp.broadcast_to(windows, (G, B, windows.shape[-1]))
-    return pallas_modexp(base, windows, n, n0inv, r2, one, interpret=interpret)
-
-
-def mod_mul_backend(a, b, n, n0inv, r2, backend: str):
-    """Plain modular product a*b mod n, canonical output.  a,b: [B, L] (b may
-    be [L], shared); n/r2: [L]; n0inv scalar."""
-    if backend == "xla":
-        return mont_mod_mul(a, b, n, n0inv, r2)
-    interpret = backend == "pallas_interpret"
-    b = jnp.broadcast_to(b, a.shape)
-    out = pallas_mod_mul(
-        a[None], b[None], n[None], jnp.reshape(n0inv, (1,)), r2[None],
-        interpret=interpret,
-    )
-    return out[0]
-
-
-def mod_mul_backend_grouped(a, b, n, n0inv, r2, backend: str):
-    """Grouped variant: a [G, B, L], b [G, B|1, L], consts [G, ...]."""
-    if backend == "xla":
-        return jax.vmap(mont_mod_mul, in_axes=(0, 0, 0, 0, 0))(
-            a, jnp.broadcast_to(b, a.shape), n, n0inv, r2
-        )
-    interpret = backend == "pallas_interpret"
-    return pallas_mod_mul(
-        a, jnp.broadcast_to(b, a.shape), n, n0inv, r2, interpret=interpret
-    )
-
-
-def mont_raw_backend_grouped(a, b, n, n0inv, backend: str):
-    """Grouped raw Montgomery product a*b*R^{-1} mod n (redundant digits,
-    value < 2n).  a [G, B, L], b [G, B|1, L]."""
-    if backend == "xla":
-        return jax.vmap(mont_mul, in_axes=(0, 0, 0, 0))(
-            a, jnp.broadcast_to(b, a.shape), n, n0inv
-        )
-    interpret = backend == "pallas_interpret"
-    return pallas_mont_raw(
-        a, jnp.broadcast_to(b, a.shape), n, n0inv, interpret=interpret
-    )
+    return backend

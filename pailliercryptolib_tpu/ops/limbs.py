@@ -1,6 +1,6 @@
-"""Fixed-shape limb representation of big integers for TPU kernels.
+"""Fixed-shape limb representation of big integers for device arithmetic.
 
-This is the TPU-native replacement for the reference's heap-allocated
+This is the replacement for the reference's heap-allocated
 ``BigNumber`` (reference: ipcl/bignum.cpp:1-565).  Instead of variable-length
 32-bit word vectors managed by ipp-crypto, every big integer lives in a
 fixed-shape ``uint32`` tensor of W-bit limbs (W = 15), least-significant limb
@@ -164,7 +164,7 @@ def ints_to_windows(xs: Sequence[int], ebits: int) -> np.ndarray:
 def ints_to_bytes_le(xs: Sequence[int], nbytes: int) -> np.ndarray:
     """Exponents -> [batch, nbytes] uint8, LEAST-significant byte first.
 
-    The wire format of the fixed-base kernel (ops/pallas_rns2.py):
+    The wire format of the fixed-base exponentiation (ops/rns.rns_fb_exp):
     byte i is the 8-bit window of weight 2^(8*i)."""
     batch = len(xs)
     buf = bytearray(batch * nbytes)

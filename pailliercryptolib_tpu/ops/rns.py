@@ -1,14 +1,14 @@
-"""RNS (residue number system) Montgomery modular exponentiation — the MXU path.
+"""RNS (residue number system) Montgomery modular exponentiation.
 
-The limb-serial CIOS kernel (ops/pallas_modexp.py) is VPU-bound: ~15*L^2
-integer lane-ops per modular multiply.  This module reformulates the same
-batched modexp so that ~98% of the arithmetic becomes two *batch-shared*
-[B, k] @ [k, k] matrix products per modular multiply — exact integer
-matmuls that run on the MXU (the systolic array), which has ~50x the
-throughput of the VPU.  This is the TPU-native answer to the reference's
-entire acceleration stack (AVX512-IFMA lanes + QAT offload,
-ipcl/mod_exp.cpp): same dispatch seam, a fundamentally different machine
-mapping.
+This is the library's modexp backend on every platform.  A limb-serial
+CIOS multiply (ops/montgomery.py) is ~15*L^2 dependent integer ops per
+modular multiply; this module reformulates the same batched modexp so that
+most of the arithmetic becomes batch-shared [B, k] @ [k, k+1] matrix
+products per modular multiply — exact integer matmuls over 7-bit digit
+planes (bf16 operands, f32 accumulation), which XLA hands to the matrix
+units — plus elementwise Barrett chains that XLA fuses.  It takes the
+place of the reference's acceleration stack (AVX512-IFMA lanes + QAT
+offload, ipcl/mod_exp.cpp) behind the same dispatch seam.
 
 Algorithm: Bajard–Imbert RNS Montgomery multiplication.
 
@@ -16,7 +16,7 @@ Algorithm: Bajard–Imbert RNS Montgomery multiplication.
   primes, A = {a_1..a_k} and B = {b_1..b_k}, plus one redundant modulus m_r:
   a [batch, 2k+1] uint32 tensor.  M_A = prod(a_i) >= 9N, M_B >= 9N.
 * MM(x, y) = x*y*M_A^{-1} mod N (up to a < 3N representative):
-    1. s = x*y               (elementwise per residue, VPU)
+    1. s = x*y               (elementwise per residue)
     2. q = s * (-N^{-1})     (base A only, elementwise)
     3. q -> base B + m_r     (MATMUL: sigma_i = q_i * (M_A/a_i)^{-1} mod a_i,
                               q_hat_j = sum_i sigma_i * ((M_A/a_i) mod b_j)
@@ -28,16 +28,22 @@ Algorithm: Bajard–Imbert RNS Montgomery multiplication.
     5. r -> base A           (MATMUL, *exact* Shenoy–Kumaresan extension:
                               alpha' recovered exactly via the redundant
                               residue r mod m_r)
-* Exactness of the matmuls: operands are split into 7-bit digits and fed to
-  the MXU as bf16 (integers <= 127 are exact in bf16); products <= 127^2
-  accumulate in f32 over k <= 330 terms => sums < 2^22.4 < 2^24, exact.
+* Exactness of the matmuls: operands are split into 7-bit digits (integers
+  <= 127 are exact in bf16); each digit-plane product accumulates <= 127^2
+  over <= k+1 terms in f32.  At the widest supported context (4096-bit
+  keys' n^2, k = 637) that is 127^2 * 638 < 2^23.3 < 2^24, so every plane
+  sum is an exact f32 integer.  Two planes are never added in f32 (their
+  sum can reach 2^24.3): each is cast to uint32 first.
 * All per-residue reductions use a 32-bit-safe Barrett: for v < 2^30,
   q_est = ((v >> 14) * floor(2^28/m)) >> 14, r = v - q_est*m, then up to
   three conditional subtracts.  No 64-bit arithmetic anywhere.
+* Secret exponents (obfuscator bytes, p-1/q-1, lambda) never index memory:
+  window-table entries are selected with one-hot products (rns_mont_exp's
+  masked sum, rns_fb_exp's one-hot matmul), so the work and the addresses
+  touched are the same for every exponent.
 
 The whole scheme is validated limb-for-limb against Python pow() in
-tests/test_rns.py; the fused Pallas kernels (ops/pallas_rns2.py) derive
-their constants from the same RNSContext.
+tests/test_rns.py.
 """
 
 from __future__ import annotations
@@ -66,8 +72,8 @@ ALPHA_MARGIN = 1.0 / 16.0  # Kawamura floor-estimate safety offset
 #: reaches below 2^13 for very wide moduli (>= ~5.9k bits — 3072/4096-bit
 #: keys' n^2; the reference's own QAT envelope reaches 8192-bit operands,
 #: module/heqat/include/heqat/bnops.h:16-20).  Such "wide-pool" contexts
-#: REQUIRE the f32-reciprocal kernel reduction (is_wide_pool /
-#: ops/pallas_rns2._red_mu): the integer-Barrett quotient-error bound
+#: REQUIRE the f32-reciprocal reduction (is_wide_pool /
+#: barrett_reduce): the integer-Barrett quotient-error bound
 #: v/2^28 + 2^14/m + 2 outgrows the 4m/2m/m conditional-subtract chain
 #: once m < 2^13, while the f32 flavor's {0,1} error holds for any
 #: m > 2^12.
@@ -115,7 +121,7 @@ def _alloc_bases(nbits: int, product_bits: Optional[int] = None):
     The ONE allocator behind both :meth:`RNSContext.create` and the
     width gate (:func:`rns_supported`), so the two cannot drift.  The
     base-product target is QUANTIZED to a 16-bit grid: with the raw
-    target 9*N, the moduli count k — and with it every kernel shape and
+    target 9*N, the moduli count k — and with it every program shape and
     persistent-compile-cache key — would flip at prime-count boundaries
     depending on the key's exact magnitude, so two same-bit-size keys
     could compile distinct (but identical-cost) programs and never
@@ -174,8 +180,7 @@ def rns_max_modulus_bits() -> int:
 
     Found by bisection over :func:`_pool_can_serve` (the exact
     simulation of create()'s allocator).  Above this the engines fall
-    back to the width-generic CIOS kernel backend
-    (ops/pallas_modexp.py)."""
+    back to the width-generic CIOS backend ("xla", ops/montgomery.py)."""
     lo, hi = 16, 1 << 16
     while lo < hi:  # invariant: serve(lo) true, serve(hi) false
         mid = (lo + hi + 1) // 2
@@ -187,7 +192,7 @@ def rns_max_modulus_bits() -> int:
 
 
 def rns_supported(nbits: int) -> bool:
-    """Whether the RNS/MXU backend can represent an ``nbits`` modulus."""
+    """Whether the RNS backend can represent an ``nbits`` modulus."""
     return nbits <= rns_max_modulus_bits()
 
 
@@ -238,7 +243,7 @@ class RNSContext:
     ) -> "RNSContext":
         """``product_bits`` forces the base product above 2**product_bits so
         two same-size moduli (CRT's p^2 and q^2) get identical prime bases
-        and hence stackable constant shapes for the grouped kernel."""
+        and hence stackable constants for the vmapped (G=2) CRT modexp."""
         if N <= 0 or N % 2 == 0:
             raise ValueError("RNS modulus must be positive and odd")
         nbits = N.bit_length()
@@ -335,43 +340,32 @@ class RNSContext:
     def to_residues(self, x: int) -> np.ndarray:
         return self._to_residues(x, self.mods)
 
-    def device_consts(self) -> dict:
-        """All constants as jnp arrays (shared across calls via jit args).
+    def host_consts(self) -> dict:
+        """All constants the device stages read, as numpy arrays.
 
         Wide-pool contexts (any modulus < 2^13) ship the f32-reciprocal
         reduction constants instead of integer Barrett — barrett_reduce
         dispatches on the dtype (see there for the bound argument)."""
-        f = jnp.asarray
-        return dict(
-            mods=f(self.mods),
-            barrett=f(
-                inv_f32(self.mods) if is_wide_pool(self) else self.barrett
-            ),
-            neg_Ninv_A=f(self.neg_Ninv_A),
-            MAi_inv_A=f(self.MAi_inv_A),
-            inv_a_f32=f(self.inv_a_f32),
-            T1=f(self.T1),
-            sigma_c_A=f(self.sigma_c_A),
-            T1ext=f(self.T1ext),
-            MA_mod_B=f(self.MA_mod_B),
-            N_B=f(self.N_B),
-            MAinv_B=f(self.MAinv_B),
-            MBj_inv_B=f(self.MBj_inv_B),
-            T2=f(self.T2),
-            T2r=f(self.T2r),
-            MBinv_mr=_U32(self.MBinv_mr),
-            MB_mod_A=f(self.MB_mod_A),
-            Cin=f(self.Cin),
-            Aout_limbs=f(self.Aout_limbs),
-            MA_limbs=f(self.MA_limbs),
-            mont_sq=f(self.mont_sq),
-            mont_one=f(self.mont_one),
-            plain_one=f(self.plain_one),
+        names = (
+            "mods neg_Ninv_A MAi_inv_A inv_a_f32 T1 sigma_c_A T1ext MA_mod_B "
+            "N_B MAinv_B MBj_inv_B T2 T2r MB_mod_A Cin Aout_limbs MA_limbs "
+            "mont_sq mont_one plain_one"
+        ).split()
+        out = {name: getattr(self, name) for name in names}
+        out["barrett"] = (
+            inv_f32(self.mods) if is_wide_pool(self) else self.barrett
         )
+        out["MBinv_mr"] = np.uint32(self.MBinv_mr)
+        return out
+
+    def device_consts(self) -> dict:
+        """:meth:`host_consts` as jnp arrays (shared across calls via jit
+        args)."""
+        return {k: jnp.asarray(v) for k, v in self.host_consts().items()}
 
 
 # ---------------------------------------------------------------------------
-# stage primitives (work on jnp values; shared by XLA path and Pallas kernel)
+# stage primitives (work on jnp values)
 # ---------------------------------------------------------------------------
 
 
@@ -411,46 +405,27 @@ def _digit_split(x):
     return lo, hi
 
 
-def exact_matmul(x, T):
-    """Exact integer product  x @ T  for x [B, k] < 2^14, T [k, J] < 2^14.
+def matmul_mod(x, T, m, mu):
+    """(x @ T) mod m, columnwise moduli m [J], exactly, for x [B, J'] and
+    T [J', J] residues < 2^14 with J' <= 638.
 
-    Returns uint32 [B, J] values < 2^28 + 2^22 (NOT reduced).  Uses four
-    bf16 MXU matmuls over 7-bit digit planes with f32 accumulation; every
-    partial sum < 2^22.4 is exactly representable.
+    Each digit-plane sum is <= 127^2 * J' < 2^23.3, exact in f32.  The two
+    middle planes are cast to uint32 BEFORE they are added: their sum can
+    reach 2^24.3, where f32 no longer holds every integer.  The
+    2^14-shifted recombination is reduced in two Barrett steps to stay
+    inside uint32; its first input is < 2^30 for integer-Barrett contexts
+    (no modulus below 2^13 leaves k <= 435) and < 2^30.4 < 2^31 for the
+    f32-reciprocal flavour (see barrett_reduce).
     """
     xlo, xhi = _digit_split(x)
     Tlo, Thi = _digit_split(T)
 
     def mm(a, b):
-        return jnp.dot(a, b, preferred_element_type=_F32)
+        return jnp.dot(a, b, preferred_element_type=_F32).astype(_U32)
 
     s_ll = mm(xlo, Tlo)
-    s_lh = mm(xlo, Thi)
-    s_hl = mm(xhi, Tlo)
+    mid = mm(xlo, Thi) + mm(xhi, Tlo)  # < 2^24.3: added in uint32
     s_hh = mm(xhi, Thi)
-    mid = s_lh + s_hl  # < 2^23.4, exact
-    return (
-        s_ll.astype(_U32)
-        + (mid.astype(_U32) << DIGIT_BITS)
-        + (s_hh.astype(_U32) << (2 * DIGIT_BITS))
-    )
-
-
-def matmul_mod(x, T, m, mu):
-    """(x @ T) mod m, columnwise moduli m [J], exactly.
-
-    Digit sums are < 2^23.4 each; the 2^14-shifted recombination is reduced
-    in two Barrett steps to stay inside uint32.
-    """
-    xlo, xhi = _digit_split(x)
-    Tlo, Thi = _digit_split(T)
-
-    def mm(a, b):
-        return jnp.dot(a, b, preferred_element_type=_F32)
-
-    s_ll = mm(xlo, Tlo).astype(_U32)
-    mid = (mm(xlo, Thi) + mm(xhi, Tlo)).astype(_U32)
-    s_hh = mm(xhi, Thi).astype(_U32)
     # value = s_ll + mid*2^7 + s_hh*2^14
     t = barrett_reduce((s_hh << DIGIT_BITS) + mid, m, mu)  # < 2^31 in, < m out
     return barrett_reduce((t << DIGIT_BITS) + s_ll, m, mu)
@@ -506,7 +481,9 @@ def limbs_to_rns(x, c):
     """Standard 15-bit limbs [B, L] -> residues [B, K] (exact).
 
     Limbs are < 2^15 -> three digit planes (7+7+1 bits); matrix entries are
-    < 2^14 -> two planes.  All six f32 accumulations stay < 2^23.
+    < 2^14 -> two planes.  Each f32 accumulation is <= 127^2 * L, which
+    stays < 2^24 for L < 1040 limbs (the widest input, a 4096-bit key's
+    full n^2-width ciphertext, has ~550).
     """
     mods, mu = c["mods"], c["barrett"]
     Cin = c["Cin"]  # [L, K]
@@ -570,7 +547,7 @@ def rns_to_limbs(x_rns, c):
             planes.append((shift_s + shift_l, mm(sd, Ld).astype(_U32)))
     # Combine the digit planes into limb columns.  A plane p at limb column
     # l with weight 2^shift contributes p * 2^(shift mod 15) at column
-    # l + shift//15; to stay inside uint32 (p < 2^22.4) split each shifted
+    # l + shift//15; to stay inside uint32 (p < 2^23.3) split each shifted
     # plane at the limb boundary:  p*2^s = (p & (2^(15-s)-1))<<s
     #                              + (p >> (15-s)) * 2^15.
     acc = jnp.zeros_like(planes[0][1])
@@ -603,15 +580,18 @@ def rns_to_limbs(x_rns, c):
 
 
 # ---------------------------------------------------------------------------
-# windowed exponentiation (XLA path)
+# windowed exponentiation
 # ---------------------------------------------------------------------------
 
 
 def rns_mont_exp(x_rns, windows, c):
-    """x^e * (representative < 3N) via fixed 4-bit windows, all in RNS.
+    """x^e mod N via fixed 4-bit windows (MS window first), all in RNS.
 
-    x_rns: [B, K] residues of x < N; windows [B, NW] (or [1, NW]).
-    Returns residues of a representative of x^e mod N, value < 2N.
+    x_rns: [B, K] residues of any x < M_A (the first, to-Montgomery
+    multiply contracts it below 3N — so CRT decrypt can feed a full
+    n^2-width ciphertext into the p^2/q^2 systems); windows [B, NW], or
+    [1, NW] for one exponent shared by every row.  Returns residues of a
+    representative of x^e mod N, value < 2N.
     """
     nw = windows.shape[-1]
     B = x_rns.shape[0]
@@ -632,10 +612,84 @@ def rns_mont_exp(x_rns, windows, c):
             acc = rns_mont_mul(acc, acc, c)
         w = jax.lax.dynamic_slice_in_dim(windows, i, 1, axis=-1)[..., 0]
         w = jnp.broadcast_to(w, (B,))
+        # The window is secret (decrypt's p-1/q-1, RAW's lambda): select
+        # with a one-hot masked sum over all 16 entries, never a gather
+        # indexed by w, so work and addresses do not depend on it.
         onehot = (w[None, :] == jnp.arange(16, dtype=_U32)[:, None]).astype(_U32)
         sel = jnp.sum(table * onehot[..., None], axis=0)
         return rns_mont_mul(acc, sel, c)
 
     acc = jax.lax.fori_loop(0, nw, body, one)
     # leave Montgomery domain: result value < 3N/M_A + 2N -> < 2N + 1
+    return rns_mont_mul(acc, c["plain_one"][None, :], c)
+
+
+# ---------------------------------------------------------------------------
+# fixed-base exponentiation (DJN obfuscators hs^r)
+# ---------------------------------------------------------------------------
+
+FB_WINDOW_BITS = 8  # one table per exponent byte
+FB_TABLE = 1 << FB_WINDOW_BITS
+
+
+def fb_num_windows(ebits: int) -> int:
+    """Byte positions NP of the fixed-base table for ``ebits``-bit
+    exponents (rounded up to a multiple of 8 to bound jit variants)."""
+    nbytes = -(-ebits // FB_WINDOW_BITS)
+    return max(8, -(-nbytes // 8) * 8)
+
+
+def fb_table_planes(g_rns, c):
+    """Per-key fixed-base table from g_rns [NP, K]: residues of
+    g_i = base^(256^i) mod N.
+
+    Entry [i, j] is g_i^j in Montgomery form (g_i^j * M_A, value < 3N),
+    built by NP batched power chains of 255 RNS Montgomery multiplies.
+    Returned as the two 7-bit digit planes of every residue, side by side,
+    in bf16: [NP, 256, 2K] (lo | hi), ready for rns_fb_exp's one-hot
+    matmul gather.
+    """
+    gm = rns_mont_mul(g_rns, c["mont_sq"][None, :], c)  # Montgomery form
+    one = jnp.broadcast_to(c["mont_one"][None, :], gm.shape).astype(_U32)
+
+    def step(prev, _):
+        nxt = rns_mont_mul(prev, gm, c)
+        return nxt, nxt
+
+    _, powers = jax.lax.scan(step, one, None, length=FB_TABLE - 1)
+    table = jnp.concatenate([one[None], powers], axis=0)  # [256, NP, K]
+    lo, hi = _digit_split(table.transpose(1, 0, 2))
+    return jnp.concatenate([lo, hi], axis=-1)
+
+
+def rns_fb_exp(planes, win_bytes, c, mont_out=False):
+    """base^e mod N from the fixed-base table: one table multiply per
+    exponent byte, no squarings.
+
+    planes: [NP, 256, 2K] from :func:`fb_table_planes`; win_bytes [B, NP]
+    exponent bytes, least significant first.  Returns [B, K] residues of
+    a representative <= 2N of base^e — or, with ``mont_out``, of
+    base^e * M_A (value < 3N, Montgomery form), so that the caller's next
+    rns_mont_mul doubles as the leave-Montgomery multiply.
+    """
+    NP = planes.shape[0]
+    K = planes.shape[-1] // 2
+    ids = jnp.arange(FB_TABLE, dtype=jnp.int32)[None, :]
+
+    def select(i):
+        w = jax.lax.dynamic_index_in_dim(win_bytes, i, 1, keepdims=False)
+        # The exponent bytes are secret: select the table row with a
+        # one-hot [B, 256] matmul (exact — one nonzero 0/1 term per sum),
+        # never a gather indexed by the byte, so work and addresses do not
+        # depend on it.  The position i is public.
+        onehot = (w.astype(jnp.int32)[:, None] == ids).astype(_BF16)
+        tab = jax.lax.dynamic_index_in_dim(planes, i, 0, keepdims=False)
+        s = jnp.dot(onehot, tab, preferred_element_type=_F32).astype(_U32)
+        return s[:, :K] + (s[:, K:] << DIGIT_BITS)
+
+    acc = jax.lax.fori_loop(
+        1, NP, lambda i, acc: rns_mont_mul(acc, select(i), c), select(0)
+    )
+    if mont_out:
+        return acc
     return rns_mont_mul(acc, c["plain_one"][None, :], c)

@@ -2,10 +2,11 @@
 
 The analog of ``ipcl::initializeContext("CPU"/"QAT"/"HYBRID")``
 (ipcl/utils/context.cpp:16-44): where the reference brings up the QAT
-device runtime (SAL process, instance enumeration, scheduler threads), the
-TPU build initializes optional multi-process JAX, builds a 1-D device mesh
-over the ciphertext batch axis, and records the preferred compute backend
-("xla" or "pallas").  ``terminateContext`` tears the mesh reference down.
+device runtime (SAL process, instance enumeration, scheduler threads), this
+build initializes optional multi-process JAX, builds a 1-D device mesh
+over the ciphertext batch axis, and records the preferred modexp backend
+("rns" or "xla", ops/dispatch.py).  ``terminateContext`` tears the mesh
+reference down.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import jax
 class PaillierContext:
     choice: str
     mesh: Optional[jax.sharding.Mesh]
-    backend: str  # "pallas" | "xla"
+    backend: str  # "rns" | "xla"
     initialized: bool = True
 
 
@@ -42,13 +43,14 @@ def initialize_context(
 
     choice:
       - "DEFAULT"/"TPU": single-process, all local devices in a 1-D mesh.
-      - "CPU": force the XLA interpreter path (useful for tests).
+      - "CPU": force the CIOS ("xla") backend, like the reference's
+        initializeContext("CPU").
       - "MESH"/"HYBRID"/"QAT": accepted for API parity with the reference's
         string map (ipcl/utils/context.cpp:16-21); "QAT"/"HYBRID" behave as
         "DEFAULT" since the accelerator here *is* the default backend.
     distributed: call jax.distributed.initialize() first (multi-host);
     coordinator_address / num_processes / process_id are forwarded (all
-    optional on TPU pods, required for CPU/GPU multi-process bring-up).
+    required for a multi-process bring-up without a cluster environment).
     The resulting mesh then spans every device in the job, so the public
     encrypt/decrypt APIs shard batches across hosts transparently.
     """

@@ -1,18 +1,18 @@
 """Multi-chip execution: shard_map over a device mesh.
 
 The reference has **no** distributed backend (SURVEY.md §2.5) — its only
-"remote" resource is the PCIe QAT co-processor.  This module creates what the
-TPU build needs instead: the ciphertext batch axis sharded across chips over
-ICI (pure data parallelism — batched modexp is embarrassingly parallel, so
-the only communication is input/output distribution), plus a second mesh
-axis for the CRT residue systems (decrypt's p^2/q^2 halves can run on
-disjoint device groups, the multi-chip generalization of the reference's
+"remote" resource is the PCIe QAT co-processor.  This module creates what a
+multi-device build needs instead: the ciphertext batch axis sharded across
+devices (pure data parallelism — batched modexp is embarrassingly parallel,
+so the only communication is input/output distribution), plus a second
+mesh axis for the CRT residue systems (decrypt's p^2/q^2 halves can run on
+disjoint device groups, the multi-device generalization of the reference's
 2-way CRT decomposition, ipcl/pri_key.cpp:114-146).
 
-Because the hot ops are Pallas kernels (opaque to the XLA partitioner), the
-multi-device path wraps them in ``jax.shard_map``: every device runs the
-fused kernel on its local batch shard; no collectives appear in the steady
-state.
+The mesh follows the algorithm alone (a 1-D batch axis); devices joined
+all to all need no topology-shaped layout.  The stages are wrapped in
+``jax.shard_map``: every device runs the whole pipeline on its local batch
+shard, so no collectives appear in the steady state.
 """
 
 from __future__ import annotations
@@ -45,9 +45,10 @@ def _replicated(mesh: Mesh):
     return P(*(None for _ in mesh.axis_names))
 
 
-def sharded_encrypt_djn(mesh: Mesh, backend: str):
-    """shard_map'd DJN encrypt: batch axis split across 'batch' devices."""
-    op = functools.partial(pops.encrypt_djn_op, backend=backend)
+def sharded_encrypt_djn(mesh: Mesh):
+    """shard_map'd CIOS DJN encrypt: batch axis split across 'batch'
+    devices."""
+    op = pops.encrypt_djn_op
     data = P("batch", None)  # [B, L] arrays split on batch
     const = P(None)  # [L] arrays replicated
     fn = jax.shard_map(
@@ -60,8 +61,9 @@ def sharded_encrypt_djn(mesh: Mesh, backend: str):
     return jax.jit(fn)
 
 
-def sharded_decrypt_crt(mesh: Mesh, backend: str):
-    """shard_map'd CRT decrypt over a {'crt', 'batch'} or {'batch'} mesh.
+def sharded_decrypt_crt(mesh: Mesh):
+    """shard_map'd CIOS CRT decrypt over a {'crt', 'batch'} or {'batch'}
+    mesh.
 
     On a 2-D mesh the [2, ...] residue-system arrays are additionally split
     on the 'crt' axis, so each half-width modexp batch runs on its own
@@ -71,7 +73,7 @@ def sharded_decrypt_crt(mesh: Mesh, backend: str):
     two_d = "crt" in mesh.axis_names
 
     if not two_d:
-        op = functools.partial(pops.decrypt_crt_op, backend=backend)
+        op = pops.decrypt_crt_op
         data = P("batch", None)
         g_const = P(None, None)
         g_wins = P(None, None, None)
@@ -94,17 +96,10 @@ def sharded_decrypt_crt(mesh: Mesh, backend: str):
 
     # 2-D mesh: split the heavy grouped modexp on ('crt', 'batch'), run the
     # recombination data-parallel on a flattened view of the mesh.
-    def op2(ct, sq_n, sq_n0inv, sq_r2, sq_one, exp_wins, hensel, hfun,
-            pq_n, pq_n0inv, pq_r2, pinv_q, p_limbs):
-        return pops.decrypt_crt_op(
-            ct, sq_n, sq_n0inv, sq_r2, sq_one, exp_wins, hensel, hfun,
-            pq_n, pq_n0inv, pq_r2, pinv_q, p_limbs, backend=backend,
-        )
-
     data = P(("crt", "batch"), None)  # batch split over ALL devices
     g_const = P(None, None)
     fn = jax.shard_map(
-        op2,
+        pops.decrypt_crt_op,
         mesh=mesh,
         in_specs=(
             data,
@@ -127,35 +122,35 @@ def shard_stage(mesh: Mesh, fn, data_argnums, **kwargs):
     constants; the args listed in ``data_argnums`` are sharded on their
     leading axis over the mesh's 'batch' axis (which must divide B — the
     engines pad to tile*ndev), everything else (scalars, const arrays,
-    grouped-constant dicts) is replicated.  Outputs are [B, ...] and come
-    back batch-sharded, so chained stages never gather.
+    constant dicts) is replicated.  Outputs are [B, ...] and come back
+    batch-sharded, so chained stages never gather.  The jitted program is
+    built once per (mesh, stage, static kwargs) and reused across calls.
 
     This is what makes `initialize_context` + a >1-device mesh turn the
-    public PublicKey.encrypt / PrivateKey.decrypt APIs into multi-chip
+    public PublicKey.encrypt / PrivateKey.decrypt APIs into multi-device
     programs with no manual shard_map plumbing (SURVEY.md §2.5).
     """
-    data_argnums = frozenset(data_argnums)
-    bound = functools.partial(fn, **kwargs) if kwargs else fn
+    return _sharded_stage(
+        mesh, fn, frozenset(data_argnums), tuple(sorted(kwargs.items()))
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _sharded_stage(mesh: Mesh, fn, data_argnums, kwargs):
+    bound = functools.partial(fn, **dict(kwargs)) if kwargs else fn
 
     def call(*args):
-        def data_spec(a):
-            return P("batch", *([None] * (a.ndim - 1)))
-
+        # pytree-prefix specs: P("batch") splits every leaf's leading axis,
+        # P() replicates a whole argument (dicts of constants included)
         in_specs = tuple(
-            jax.tree.map(data_spec if i in data_argnums else (lambda _: P()), a)
-            for i, a in enumerate(args)
+            P("batch") if i in data_argnums else P() for i in range(len(args))
         )
-        out_sd = jax.eval_shape(bound, *args)
-        out_specs = jax.tree.map(
-            lambda s: P("batch", *([None] * (len(s.shape) - 1))), out_sd
-        )
-        sm = jax.shard_map(
-            bound, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+        return jax.shard_map(
+            bound, mesh=mesh, in_specs=in_specs, out_specs=P("batch"),
             check_vma=False,
-        )
-        return jax.jit(sm)(*args)
+        )(*args)
 
-    return call
+    return jax.jit(call)
 
 
 def shard_batch(arr, mesh: Mesh):
@@ -167,35 +162,3 @@ def shard_batch(arr, mesh: Mesh):
     spec = P(axes, *([None] * (arr.ndim - 1)))
     return jax.device_put(arr, NamedSharding(mesh, spec))
 
-
-def shard_batch_middle(arr, mesh: Mesh):
-    """Place a [G, B, ...] array with axis 1 sharded over the mesh batch."""
-    axes = ("crt", "batch") if "crt" in mesh.axis_names else ("batch",)
-    spec = P(None, axes if len(axes) == 1 else axes, *([None] * (arr.ndim - 2)))
-    return jax.device_put(arr, NamedSharding(mesh, spec))
-
-
-def sharded_rns_modexp(mesh: Mesh, consts: dict, *, interpret: bool = False):
-    """shard_map'd RNS/MXU modexp: [G, B, L] limbs with B split on 'batch'.
-
-    Every device runs the fused MXU kernel (ops/pallas_rns2.py) on its local
-    batch shard; the grouped-constants dict is replicated.  This is the
-    multi-chip form of the flagship path: with the batch axis sharded over
-    ICI there are no collectives at all — each chip's systolic array works
-    an independent slice of the ciphertext vector (SURVEY.md §2.5).
-    """
-    import functools as _ft
-
-    from ..ops.pallas_rns2 import pallas_rns_modexp2
-
-    axes = ("crt", "batch") if "crt" in mesh.axis_names else ("batch",)
-    data = P(None, axes, None) if axes == ("batch",) else P("crt", "batch", None)
-
-    fn = jax.shard_map(
-        _ft.partial(pallas_rns_modexp2, interpret=interpret),
-        mesh=mesh,
-        in_specs=(data, data, jax.tree.map(lambda _: P(), consts)),
-        out_specs=data,
-        check_vma=False,
-    )
-    return jax.jit(fn)

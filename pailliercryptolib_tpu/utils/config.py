@@ -7,11 +7,12 @@ dataclass whose defaults can be overridden by environment variables, plus
 the runtime API in ops/dispatch.py (hybrid mode) and parallel/context.py.
 
 Env overrides (checked once at first access):
-  PAILLIER_TPU_BACKEND       "rns" | "pallas" | "xla" (+ _interpret forms)
-  PAILLIER_TPU_BATCH_TILE    kernel batch tile (informational; kernels pin 128)
+  PAILLIER_TPU_BACKEND       "rns" | "xla" (ops/dispatch.py)
+  PAILLIER_TPU_BATCH_TILE    batch padding unit (informational; engines pin 128)
   PAILLIER_TPU_WINDOW_BITS   exponent window width (informational; 4)
   PAILLIER_TPU_PERF          "1" -> print per-batch device timings
-  JAX_COMPILATION_CACHE_DIR  persistent compile cache location
+  JAX_COMPILATION_CACHE_DIR  persistent compile cache location (default:
+                             <checkout>/.jax_cache, see compile_cache_dir)
 """
 
 from __future__ import annotations
@@ -31,33 +32,44 @@ class Config:
     limb_bits: int = 15
     rns_mod_bits: int = 14
     perf: bool = False
-    compilation_cache_dir: Optional[str] = None
 
     @classmethod
     def from_env(cls) -> "Config":
         return cls(
             backend=os.environ.get("PAILLIER_TPU_BACKEND"),
             perf=os.environ.get("PAILLIER_TPU_PERF", "0") == "1",
-            compilation_cache_dir=os.environ.get("JAX_COMPILATION_CACHE_DIR"),
         )
 
 
 _CONFIG: Optional[Config] = None
 
 
+def compile_cache_dir() -> str:
+    """The persistent compile cache directory: JAX_COMPILATION_CACHE_DIR
+    when set, else the fixed path <checkout>/.jax_cache (derived from this
+    package's location, so every process of one checkout shares it)."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return os.path.join(os.path.dirname(pkg), ".jax_cache")
+
+
+def enable_compile_cache() -> str:
+    """Point JAX's persistent compile cache at :func:`compile_cache_dir`
+    (the one place in this repository that sets it); returns the path."""
+    import jax
+
+    path = compile_cache_dir()
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
+
+
 def get_config() -> Config:
     global _CONFIG
     if _CONFIG is None:
         _CONFIG = Config.from_env()
-        if _CONFIG.compilation_cache_dir:
-            try:
-                import jax
-
-                jax.config.update(
-                    "jax_compilation_cache_dir", _CONFIG.compilation_cache_dir
-                )
-            except Exception:
-                pass
+        enable_compile_cache()
     return _CONFIG
 
 

@@ -1,6 +1,7 @@
 """ctypes bindings for the native host codec (csrc/host_codec.cpp).
 
-Compiled on first use with g++ into the package directory; every consumer
+Compiled from the committed source on first use with g++ into the package
+directory (the library itself is never committed); every consumer
 falls back to the pure-numpy codec in ops/limbs.py when the toolchain or
 the shared object is unavailable, mirroring the reference's always-available
 CPU fallback policy (#ifdef IPCL_USE_QAT, ipcl/mod_exp.cpp:13-16).
@@ -34,11 +35,15 @@ def _load() -> Optional[ctypes.CDLL]:
             if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(
                 _SRC
             ):
+                # build beside the target, then rename: concurrent
+                # processes never load a half-written library
+                tmp = f"{_SO}.{os.getpid()}.tmp"
                 subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-o", _SO, _SRC],
+                    ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
                     check=True,
                     capture_output=True,
                 )
+                os.replace(tmp, _SO)
             lib = ctypes.CDLL(_SO)
             u8p = ctypes.POINTER(ctypes.c_uint8)
             u32p = ctypes.POINTER(ctypes.c_uint32)

@@ -49,7 +49,7 @@ hs = pow(h, n, n2)
 pk = ptpu.PublicKey(n, n.bit_length(), hs=hs, randbits=n.bit_length() // 2)
 sk = ptpu.PrivateKey(pk, P_, Q_)
 assert pk._engine.mesh is ctx.mesh
-assert pk._engine.backend == "xla"
+assert pk._engine.backend == "rns"  # the default on every platform
 
 B = 16
 vals = [1000003 * (i + 1) for i in range(B)]

@@ -93,12 +93,7 @@ def test_apply_obfuscator_batch_fresh(rng):
 
 @pytest.mark.parametrize(
     "backend",
-    [
-        "xla",
-        # the interpret variant rebuilds the fixed-base table twice
-        # (~45 s): full-set only
-        pytest.param("rns_interpret", marks=pytest.mark.slow),
-    ],
+    ["xla", "rns"],
 )
 def test_enable_djn_after_engine_instantiation(backend):
     """Regression: enableDJN on a key whose engine already exists must

@@ -40,3 +40,18 @@ def test_perf_timer_silent_by_default(capsys):
         assert "[paillier-tpu perf]" not in capsys.readouterr().out
     finally:
         cfg.set_config(old)
+
+
+def test_compile_cache_dir_from_env(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the cache path as given."""
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert cfg.compile_cache_dir() == str(tmp_path)
+
+
+def test_compile_cache_dir_default(monkeypatch):
+    """Unset: the fixed <checkout>/.jax_cache beside the package."""
+    import os
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cfg.compile_cache_dir() == os.path.join(repo, ".jax_cache")

@@ -5,15 +5,20 @@ What the reference cannot test at all (no distributed backend, SURVEY.md
 {'crt','batch'} sharded CRT decrypt, and the driver-facing dryrun.
 """
 
+import os
+import sys
+
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import pailliercryptolib_tpu as ptpu
 from pailliercryptolib_tpu.models.engine import _round_windows
 from pailliercryptolib_tpu.ops import limbs as lb
+from pailliercryptolib_tpu.ops import paillier_ops as pops
 from pailliercryptolib_tpu.parallel import mesh as pmesh
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -37,7 +42,7 @@ def test_sharded_encrypt_matches_local(key, rng):
     r = [rng.getrandbits(pub.randbits) for _ in range(B)]
 
     mesh = pmesh.make_mesh(8)
-    enc = pmesh.sharded_encrypt_djn(mesh, backend="xla")
+    enc = pmesh.sharded_encrypt_djn(mesh)
     nw = _round_windows(lb.num_windows(pub.randbits))
     m_a = pmesh.shard_batch(np.asarray(lb.ints_to_limbs(m, pub.Ln)), mesh)
     r_w = pmesh.shard_batch(np.asarray(lb.ints_to_windows(r, nw * 4)), mesh)
@@ -60,7 +65,7 @@ def test_sharded_crt_decrypt_roundtrip(key, rng):
     ct = key.pub_key.encrypt(ptpu.PlainText(vals))
 
     mesh = pmesh.make_mesh(8, crt_axis=True)
-    dec = pmesh.sharded_decrypt_crt(mesh, backend="xla")
+    dec = pmesh.sharded_decrypt_crt(mesh)
     ct_a = pmesh.shard_batch(
         np.asarray(lb.ints_to_limbs(ct.texts, 2 * priv.Lp2)), mesh
     )
@@ -76,9 +81,7 @@ def test_sharded_crt_decrypt_roundtrip(key, rng):
 
 
 def test_dryrun_multichip():
-    import sys
-
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO)
     import __graft_entry__
 
     __graft_entry__.dryrun_multichip(8)
@@ -86,9 +89,7 @@ def test_dryrun_multichip():
 
 @pytest.mark.slow
 def test_entry_compiles():
-    import sys
-
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO)
     import __graft_entry__
 
     fn, args = __graft_entry__.entry()
@@ -97,33 +98,28 @@ def test_entry_compiles():
     assert out.shape[0] == args[0].shape[0]
 
 
-def test_sharded_rns_modexp_matches_pow(rng):
-    """The flagship MXU kernel under shard_map on the 8-device CPU mesh."""
+def test_shard_stage_rns_modexp_matches_pow(rng):
+    """The RNS modexp stage sharded as the engines shard it (shard_stage)
+    on a 2-device CPU mesh, against pow()."""
     import random
 
     from pailliercryptolib_tpu.ops import rns
-    from pailliercryptolib_tpu.ops.pallas_rns2 import (
-        BATCH_TILE,
-        stack_group_consts2,
-    )
 
     r2 = random.Random(123)
     N = r2.getrandbits(128) | (1 << 127) | 1
     c = rns.RNSContext.create(N)
-    consts = stack_group_consts2([c])
-    mesh = pmesh.make_mesh(2)  # 2 devices x BATCH_TILE local batch
-    B = 2 * BATCH_TILE
+    conv = c.device_consts()
+    mesh = pmesh.make_mesh(2)
+    B = 16
     bases = [r2.randrange(N) for _ in range(B)]
     exps = [r2.getrandbits(16) for _ in range(B)]
-    x = jnp.asarray(lb.ints_to_limbs(bases, c.Lin))[None]
-    wins = jnp.asarray(lb.ints_to_windows(exps, 16))[None]
-    x = pmesh.shard_batch_middle(x, mesh)
-    wins = pmesh.shard_batch_middle(wins, mesh)
-    fn = pmesh.sharded_rns_modexp(mesh, consts, interpret=True)
-    out = fn(x, wins, consts)
-    got = lb.limbs_to_ints(
-        np.asarray(rns.rns_to_limbs(jnp.asarray(out[0]), c.device_consts()))
-    )
+    x = pmesh.shard_batch(np.asarray(lb.ints_to_limbs(bases, c.Lin)), mesh)
+    wins = pmesh.shard_batch(np.asarray(lb.ints_to_windows(exps, 16)), mesh)
+    stage = pmesh.shard_stage(mesh, pops.rns_modexp_stage, (0, 1))
+    assert pmesh.shard_stage(mesh, pops.rns_modexp_stage, (0, 1)) is stage
+    out = stage(x, wins, conv)
+    assert out.sharding.spec[0] == "batch"
+    got = lb.limbs_to_ints(np.asarray(rns.rns_to_limbs(out, conv)))
     for g, b, e in zip(got, bases, exps):
         assert g % N == pow(b, e, N)
         assert g <= 2 * N

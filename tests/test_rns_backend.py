@@ -1,17 +1,21 @@
-"""RNS/MXU backend: engine end-to-end on the interpreted v2 kernels.
+"""RNS backend: the full scheme through the engines on the default backend.
 
-Kernel-level numerical contracts live in tests/test_rns2.py; this file
-drives the full scheme (encrypt / decrypt CRT+RAW / CT*PT / obfuscation)
-through the engines with backend="rns_interpret".
+Arithmetic contracts live in tests/test_rns.py; this file drives
+encrypt / decrypt CRT+RAW / CT*PT / obfuscation through the engines.
 """
 
 import pailliercryptolib_tpu as ptpu
 
 
-def test_engine_rns_interpret_end_to_end():
-    key = ptpu.generate_keypair(256, enable_DJN=True)
+def _key(djn=True):
+    key = ptpu.generate_keypair(256, enable_DJN=djn)
     for e in (key.pub_key._engine, key.priv_key._engine):
-        e.backend = "rns_interpret"
+        assert e.backend == "rns"
+    return key
+
+
+def test_engine_rns_interpret_end_to_end():
+    key = _key()
     vals = [7, 1234567, 0, 2**31 - 1]
     ct = key.pub_key.encrypt(ptpu.PlainText(vals))
     assert key.priv_key.decrypt(ct).texts == vals
@@ -22,20 +26,16 @@ def test_engine_rns_interpret_end_to_end():
 
 
 def test_engine_rns_interpret_normal_mode():
-    key = ptpu.generate_keypair(256, enable_DJN=False)
-    for e in (key.pub_key._engine, key.priv_key._engine):
-        e.backend = "rns_interpret"
+    key = _key(djn=False)
     vals = [5, 99]
     ct = key.pub_key.encrypt(ptpu.PlainText(vals))
     assert key.priv_key.decrypt(ct).texts == vals
 
 
 def test_engine_rns_interpret_scalar_ctpt():
-    """Scalar CT*PT routes through the shared-exponent kernel (size-1 PT
-    is NOT replicated host-side)."""
-    key = ptpu.generate_keypair(256, enable_DJN=True)
-    for e in (key.pub_key._engine, key.priv_key._engine):
-        e.backend = "rns_interpret"
+    """Scalar CT*PT runs one shared [1, NW] exponent (size-1 PT is NOT
+    replicated host-side)."""
+    key = _key()
     vals = [3, 14, 159]
     ct = key.pub_key.encrypt(ptpu.PlainText(vals))
     out = ct * ptpu.PlainText([7])
@@ -43,9 +43,7 @@ def test_engine_rns_interpret_scalar_ctpt():
 
 
 def test_engine_rns_interpret_apply_obfuscator():
-    key = ptpu.generate_keypair(256, enable_DJN=True)
-    for e in (key.pub_key._engine, key.priv_key._engine):
-        e.backend = "rns_interpret"
+    key = _key()
     vals = [42, 0, 7]
     ct = key.pub_key.encrypt(ptpu.PlainText(vals))
     ct2 = key.pub_key.apply_obfuscator(ct)
@@ -56,8 +54,8 @@ def test_engine_rns_interpret_apply_obfuscator():
 def test_width_fallback_beyond_prime_pool():
     """The 12..14-bit prime pool reaches ~8.5k-bit moduli, so the FULL
     supported key envelope (n^2 to 8192 bits for 4096-bit keys) stays on
-    the RNS/MXU backend; only hypothetical wider moduli downgrade to the
-    width-generic CIOS backend instead of crashing at RNS context
+    the RNS backend; only hypothetical wider moduli downgrade to the
+    width-generic CIOS ("xla") backend instead of crashing at RNS context
     creation."""
     import random
 
@@ -65,12 +63,12 @@ def test_width_fallback_beyond_prime_pool():
     from pailliercryptolib_tpu.ops.rns import rns_max_modulus_bits, rns_supported
 
     assert rns_supported(4096)
-    assert rns_supported(8192)  # 4096-bit keys' n^2: on the MXU path
+    assert rns_supported(8192)  # 4096-bit keys' n^2: on the RNS path
     assert not rns_supported(16384)
     assert rns_max_modulus_bits() >= 8192
 
     rng = random.Random(9)
-    # a 4096-bit n (n^2 = 8192 bits) STAYS on RNS since round 5
+    # a 4096-bit n (n^2 = 8192 bits) stays on RNS
     n = rng.getrandbits(4096) | (1 << 4095) | 1
     assert PublicEngine(n, 4096, hs=None, randbits=2048,
                         backend="rns").backend == "rns"
@@ -78,10 +76,7 @@ def test_width_fallback_beyond_prime_pool():
     # public engine downgrades
     nw = rng.getrandbits(4300) | (1 << 4299) | 1
     pub = PublicEngine(nw, 4300, hs=None, randbits=2150, backend="rns")
-    assert pub.backend == "pallas"
-    pub_i = PublicEngine(nw, 4300, hs=None, randbits=2150,
-                         backend="rns_interpret")
-    assert pub_i.backend == "pallas_interpret"
+    assert pub.backend == "xla"
     # a 2048-bit n stays on RNS
     n2 = rng.getrandbits(2048) | (1 << 2047) | 1
     assert PublicEngine(n2, 2048, hs=None, randbits=1024,
@@ -108,23 +103,15 @@ def test_chacha20_rfc8439_vector():
 
 
 def test_engine_grouped_decrypt_layout(rng):
-    """PAILLIER_TPU_DECRYPT_LAYOUT=grouped (the wide-key auto choice and
-    the A/B knob) through the engine: roundtrip-correct in interpret
-    mode with the production streams=4 configuration."""
-    import os
+    """CRT decrypt runs the (p^2, q^2) systems as ONE vmapped G=2 group:
+    the engine stacks both contexts' constants (identical prime bases,
+    so every array stacks) and the roundtrip holds."""
+    import numpy as np
 
-    import pailliercryptolib_tpu as ptpu
-
-    key = ptpu.generate_keypair(256, enable_DJN=True)
-    for e in (key.pub_key._engine, key.priv_key._engine):
-        e.backend = "rns_interpret"
+    key = _key()
     vals = [rng.getrandbits(32) for _ in range(4)]
     ct = key.pub_key.encrypt(ptpu.PlainText(vals))
-    os.environ["PAILLIER_TPU_DECRYPT_LAYOUT"] = "grouped"
-    try:
-        key.priv_key._engine._rns_crt = None
-        kc2, _ = key.priv_key._engine.rns_crt
-        assert "maskB" not in kc2  # grouped, not folded
-        assert key.priv_key.decrypt(ct).texts == vals
-    finally:
-        del os.environ["PAILLIER_TPU_DECRYPT_LAYOUT"]
+    conv2 = key.priv_key._engine.rns_crt
+    assert all(v.shape[0] == 2 for v in conv2.values())
+    assert np.array_equal(conv2["mods"][0], conv2["mods"][1])
+    assert key.priv_key.decrypt(ct).texts == vals
